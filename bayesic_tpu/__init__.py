@@ -1,4 +1,4 @@
-"""bayesic_tpu — a TPU-native probabilistic-programming inference engine.
+"""bayesic_tpu — a probabilistic-programming inference engine in JAX.
 
 Built from scratch against the capability surface of mjwillson/Bayesic
 (see SURVEY.md; the reference source was never observable — /root/reference
@@ -9,7 +9,7 @@ Layering (SURVEY.md §1b):
   core/      model DSL + joint log-prob compiler   (C3, C4)
   infer/     SVI, HMC/NUTS, SMC backends           (C5-C10)
   parallel/  mesh, shardings, collectives, launch  (C11-C13, C15)
-  ops/       Pallas TPU kernels + jnp fallbacks    (C14)
+  ops/       hand-written kernels + references    (C14)
   models/    the five reference example models     (C16-C20)
   utils/     diagnostics, checkpoint, config, logs (C21, C23, aux)
 """

@@ -82,7 +82,7 @@ def default_process(msg):
                 )
             if msg.get("replacement", True):
                 # With-replacement draw: unbiased ELBO terms, O(B) instead of
-                # the O(N log N) permutation (hot-loop friendly on TPU).
+                # the O(N log N) permutation (hot-loop friendly).
                 msg["value"] = jax.random.randint(
                     msg["key"], (ssize,), 0, size
                 )

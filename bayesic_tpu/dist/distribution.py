@@ -5,7 +5,7 @@ reparameterized sampling / support metadata), the numerics layer every
 inference backend sits on (BASELINE.json north_star "vectorized joint
 log-prob evaluation", "reparameterized ELBO estimators").
 
-TPU-first design decisions:
+Design decisions:
 * Every distribution is a pytree (params are leaves) so instances can cross
   ``jit`` boundaries, live in ``lax.scan`` carries, and be ``vmap``-ed.
 * ``sample`` takes an explicit PRNG key (functional, splittable per logical

@@ -6,8 +6,7 @@ Blueprint: SURVEY.md C1/C4 — the chain-structured counterpart of
 ``log_prob`` (TFP-style ``HiddenMarkovModel``), so models with Markov
 discrete structure need no enumeration machinery and the hot loop stays a
 scan over time of logsumexp-matmul updates — exactly the shape XLA tiles
-well on TPU (K x K dense ops, static trip count, no data-dependent control
-flow).
+well (K x K dense ops, static trip count, no data-dependent control flow).
 
 Extras beyond ``log_prob``/``sample``: ``posterior_mode`` (Viterbi) and
 ``posterior_sample`` (forward-filter backward-sample), both single-scan.

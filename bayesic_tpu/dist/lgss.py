@@ -8,14 +8,14 @@ is marginalised *inside* ``log_prob`` (prediction-error decomposition), so
 models with linear-Gaussian dynamics need no latent path in the inference
 state and the marginal density is exact.
 
-TPU-first design: a sequential Kalman scan is a T-long dependency chain of
-tiny (D, D) ops — the worst shape for a TPU (no MXU work, serial latency
-bound).  Instead the filter and the RTS smoother are phrased as
+Design: a sequential Kalman scan is a T-long dependency chain of tiny
+(D, D) ops — the worst shape for an accelerator (no large matmuls, serial
+latency bound).  Instead the filter and the RTS smoother are phrased as
 ASSOCIATIVE operators (Särkkä & García-Fernández, "Temporal
 Parallelization of Bayesian Smoothers", IEEE TAC 2021) and run through
 ``lax.associative_scan``: log2(T) parallel rounds of batched (D, D)
 matmuls — XLA batches the per-time-step algebra into single fused GEMMs,
-so a T=10^4 filter costs ~14 rounds of well-shaped MXU work instead of
+so a T=10^4 filter costs ~14 rounds of well-shaped matmul work instead of
 10^4 serial steps.  The sequential scan is kept as the small-T path and as
 the parity oracle (``tests/test_lgss.py``).
 

@@ -2,7 +2,7 @@
 
 Blueprint: SURVEY.md C1 ("Mixture") — backs the GMM example (configs[3],
 SURVEY.md C19) with the assignment variable marginalised out, which is the
-TPU-friendly formulation (dense logsumexp over components; no discrete latent
+accelerator-friendly formulation (dense logsumexp over components; no discrete latent
 sites in the kernel hot loop).
 """
 

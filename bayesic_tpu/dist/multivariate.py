@@ -3,7 +3,7 @@
 Blueprint: SURVEY.md C1 — MVN (full-rank via Cholesky) backs the full-rank
 Gaussian guide (C6); Dirichlet/LKJ back mixture weights and hierarchical
 correlation priors.  All linear algebra is Cholesky-based (triangular solves,
-no explicit inverses) so XLA lowers it to MXU-friendly batched triangular ops.
+no explicit inverses) so XLA lowers it to batched triangular ops.
 """
 
 from __future__ import annotations
@@ -353,7 +353,7 @@ class Wishart(Distribution):
     """Wishart(df, S) over symmetric positive-definite matrices,
     parameterized by the lower-Cholesky factor ``scale_tril`` of the scale
     matrix S.  Sampling uses the Bartlett decomposition (one triangular
-    matmul over the MXU; gamma draws carry implicit-diff gradients, so
+    matmul; gamma draws carry implicit-diff gradients, so
     the sampler is reparameterized); ``log_prob`` is Cholesky-only:
     ``tr(S^-1 W) = ||L_s^-1 L_w||_F^2``."""
 

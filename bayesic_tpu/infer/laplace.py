@@ -8,7 +8,7 @@ the Laplace evidence estimate and covariance are computed in the right
 space for free, and are EXACT on linear-Gaussian models — which is what
 the tests exploit as an oracle.
 
-TPU notes: the optimization loop is one fused ``lax.scan`` over optax
+Shape notes: the optimization loop is one fused ``lax.scan`` over optax
 updates (same shape as the SVI driver, SURVEY.md §3.1); the Hessian is one
 ``jax.hessian`` call — dense (d, d), fine for the d ≲ 10^3 regime this is
 meant for (use SVI/NUTS beyond that).

@@ -6,7 +6,7 @@ random-walk state-space models, any latent field): proposals move on the
 ellipse through the current state and a prior draw, and the slice shrinkage
 accepts exactly; no step size, no mass matrix, every proposal accepted.
 
-TPU-native shape: the reference algorithm's inner while-loop (shrink the
+Compiled shape: the reference algorithm's inner while-loop (shrink the
 bracket until accept) is data-dependent; here it runs as a FIXED number of
 shrink iterations under ``lax.scan`` with a done-mask (the loop contracts
 the bracket geometrically, so 30 iterations bound the miss probability
@@ -31,6 +31,7 @@ import numpy as np
 from jax import lax
 
 from ...core.logjoint import build_logjoint, init_to_uniform
+from ...core.precision import exact
 
 __all__ = ["EllipticalSlice", "ESSResult"]
 
@@ -164,7 +165,9 @@ class EllipticalSlice:
                                self.num_burnin + self.num_samples))
                 return qs, iters
 
-            self._run_fn = jax.jit(run_all)
+            # the slice thresholds compare likelihoods: pinned
+            # (core/precision.py)
+            self._run_fn = jax.jit(exact(run_all))
 
         qs, iters = self._run_fn(key_run, q0)
         qs = jnp.swapaxes(qs, 0, 1)            # (chains, samples, dim)

@@ -18,7 +18,7 @@ support size and tree depth (enumeration cost moves from O(leapfrogs) to
 O(1) per transition); marginal NUTS remains preferable when K is small —
 Rao-Blackwellised gradients mix better.
 
-TPU shape: the whole run is the same two fused ``lax.scan`` programs as
+Compiled shape: the whole run is the same two fused ``lax.scan`` programs as
 ``MCMC`` (warmup, sampling), chains vectorized by ``vmap`` and shardable
 over a mesh axis by logical chain index (SURVEY.md C13a).
 """
@@ -32,6 +32,7 @@ import jax.numpy as jnp
 from jax import lax
 
 from ...core.logjoint import build_logjoint, init_to_uniform
+from ...core.precision import exact
 from .adapt import (
     build_schedule,
     da_init,
@@ -115,6 +116,9 @@ class DiscreteGibbs:
 
         return pag
 
+    # the sweep and the init compute every energy: pinned whole
+    # (core/precision.py)
+    @exact
     def _chain_step(self, key, state, z, eps, inv_mass):
         """One Gibbs sweep for one chain: exact z | u draw, then one NUTS
         transition on p(u | z)."""
@@ -129,6 +133,7 @@ class DiscreteGibbs:
         return state, z_new, nfo
 
     # -- init --------------------------------------------------------------
+    @exact
     def _initial_carry(self, key):
         def one(i):
             k = jax.random.fold_in(key, i)

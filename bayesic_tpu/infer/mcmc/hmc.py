@@ -2,7 +2,8 @@
 
 Used directly (``kernel="hmc"``), and as the mutation move inside SMC
 (SURVEY.md C9) where a fixed, small number of leapfrog steps per particle is
-the TPU-friendly choice (uniform work across the particle batch).
+the accelerator-friendly choice (uniform work across the particle
+batch).
 """
 
 from __future__ import annotations

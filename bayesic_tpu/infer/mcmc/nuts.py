@@ -1,7 +1,7 @@
-"""Iterative multinomial NUTS for TPU.
+"""Iterative multinomial NUTS as one compiled XLA loop.
 
 Blueprint: SURVEY.md C8 and §7 hard-part 2: "tree doubling is
-recursion+early-exit; on TPU it must be an iterative while_loop with static
+recursion+early-exit; compiled, it must be an iterative while_loop with static
 max_tree_depth, fully vmap-compatible (per-chain divergent tree depths =>
 masked lockstep work)".  Design follows the iterative tree-building +
 checkpoint U-turn scheme of modern accelerator NUTS implementations

@@ -10,7 +10,7 @@ product density is invariant).  Hot rungs cross energy barriers; swaps
 transport their discoveries to the cold rung, whose marginal is exactly the
 posterior.
 
-TPU-native design choices:
+Design choices:
   * replicas and chains are plain array axes — one vmapped lockstep HMC
     transition over (chains, K); a swap is an elementwise ``where`` select
     on the replica axis (no gathers, no host control flow, no collectives);
@@ -45,6 +45,7 @@ import numpy as np
 from jax import lax
 
 from ...core.logjoint import build_logjoint, init_to_uniform
+from ...core.precision import exact
 from .adapt import (
     build_schedule,
     da_init,
@@ -185,6 +186,9 @@ class ParallelTempering:
         accept = jax.random.uniform(key_acc) < accept_prob
         return jnp.where(accept, q1, q0), accept_prob
 
+    # the transitions and the init compute every energy: pinned whole
+    # (core/precision.py)
+    @exact
     def _transition_all(self, key, state: _PTState, eps_k, inv_mass_k):
         """Vmapped lockstep transition over (chains, K) + parts refresh."""
         kc = jax.vmap(
@@ -235,6 +239,7 @@ class ParallelTempering:
         return swapped, pair_acc
 
     # ------------------------------------------------------------------
+    @exact
     def _init_state(self, key):
         def one(c, k):
             kk = jax.random.fold_in(jax.random.fold_in(key, c), k)

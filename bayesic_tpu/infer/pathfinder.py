@@ -16,13 +16,13 @@ Reliability contract: on strongly non-Gaussian posteriors (e.g. the
 ``pareto_k`` exceeds 0.7 — in that regime use the draws to SEED MCMC
 (init_params / step-size scale), not as the posterior.
 
-TPU shape: the whole path is one ``lax.scan`` over L-BFGS steps (optax's
+Compiled shape: the whole path is one ``lax.scan`` over L-BFGS steps (optax's
 zoom line search, compiled); the per-iterate inverse-Hessian is built by
 the masked two-loop recursion applied to the identity (O(J·dim²) batched
 matmuls), and paths/ELBO draws vectorize with ``vmap``.  Dense (dim, dim)
 covariances are deliberate: Pathfinder targets the moderate-dim regime
 (the paper's benchmarks are ≤ a few hundred dims), where a dense Cholesky
-is one MXU tile.
+is one small matmul tile.
 """
 
 from __future__ import annotations

@@ -9,8 +9,8 @@ the KL to the posterior along
 
 with an RBF kernel and the median-pairwise-distance bandwidth heuristic.
 
-TPU-native shape: the whole update is two (N, N) x (N, D) matmuls plus an
-(N, N) pairwise-distance matrix — pure MXU work with no sequential
+Compiled shape: the whole update is two (N, N) x (N, D) matmuls plus an
+(N, N) pairwise-distance matrix — pure matmul work with no sequential
 structure; the full run is ONE lax.scan program with optax updates.
 Subsampled plates ride the same draw_subsample + N/B scaling machinery as
 the ELBO (SURVEY.md C4/C5).  The median is computed per step inside the

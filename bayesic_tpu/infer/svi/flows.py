@@ -6,11 +6,11 @@ approximation q(u) built from a diagonal-Gaussian base and a stack of
 gated inverse autoregressive flow layers (Kingma et al. 2016) with
 MADE-masked (Germain et al. 2015) MLP conditioners.
 
-TPU-native design: VI only ever evaluates log q at the guide's OWN samples,
+Design: VI only ever evaluates log q at the guide's OWN samples,
 so both sampling and density ride the *forward* (parallel) IAF direction —
 one masked-matmul pass per layer, no sequential inversion anywhere.  All
 masks are static 0/1 matrices baked at trace time, so every conditioner is
-a dense MXU matmul; the whole sample+logq path is a handful of (B, H) GEMMs.
+a dense matmul; the whole sample+logq path is a handful of (B, H) GEMMs.
 
 Layer k (u is the running vector, flip(u) between layers varies ordering):
 

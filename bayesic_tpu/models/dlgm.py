@@ -1,14 +1,15 @@
 """Example 5 — deep latent Gaussian model (DLGM) with a VAE-style amortized
-guide, plus the 1024-sharded-chain NUTS variant.
+guide, plus the 1024-chain NUTS variant.
 
 Blueprint: SURVEY.md C20 (BASELINE.json configs[4]: "Deep latent Gaussian
-model (VAE-style amortized guide), 1024 sharded NUTS chains on pod slice").
+model (VAE-style amortized guide), 1024 sharded NUTS chains").
 
-This is the flagship model: the decoder/encoder MLPs are the MXU-heavy
-compute (batched bf16-friendly matmuls), local latents z ride the plate
-subsampling machinery, decoder weights are `param` sites optimized jointly
-with the ELBO, and the NUTS variant shards 1024 chains over the mesh's
-``chain`` axis (SURVEY.md C13a) to measure effective-samples/s.
+This is the flagship model: the decoder/encoder MLPs are the matmul-heavy
+compute (batched products that may run in bf16 via ``compute_dtype``),
+local latents z ride the plate subsampling machinery, decoder weights are
+`param` sites optimized jointly with the ELBO, and the NUTS variant shards
+1024 chains over the mesh's ``chain`` axis (SURVEY.md C13a) to measure
+effective-samples/s.
 
 Amortized-guide scaling note: the model scales the in-plate prior and
 likelihood terms by N/B, so the guide scales log q(z|x) by the same factor —
@@ -22,7 +23,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -57,33 +57,64 @@ class Config:
     num_samples: int = 300
     smoke: bool = False
     bench: bool = False
-    compute_dtype: str = "float32"   # "bfloat16" for MXU fast path
+    compute_dtype: str = "float32"   # "bfloat16": matmuls in bf16,
+                                     # params stay float32
 
 
-class Decoder(nn.Module):
-    data_dim: int
-    hidden: int
-    dtype: Any = jnp.float32    # bf16 compute puts the matmuls on the MXU
-                                # fast path; params stay f32
+# ---------------------------------------------------------------------------
+# two-layer tanh MLPs as plain JAX: a params pytree, init(key), apply
+# ---------------------------------------------------------------------------
 
-    @nn.compact
-    def __call__(self, z):
-        h = nn.tanh(nn.Dense(self.hidden, dtype=self.dtype)(z))
-        return nn.Dense(self.data_dim, dtype=self.dtype)(h) \
-            .astype(jnp.float32)
+def _dense_init(key, fan_in, fan_out):
+    """LeCun-normal kernel (truncated normal, variance 1/fan_in), zero
+    bias."""
+    std = 1.0 / np.sqrt(fan_in) / 0.87962566103423978
+    kernel = std * jax.random.truncated_normal(key, -2.0, 2.0,
+                                               (fan_in, fan_out))
+    return {"kernel": kernel, "bias": jnp.zeros((fan_out,))}
 
 
-class Encoder(nn.Module):
+def _dense(p, x, dtype):
+    return x.astype(dtype) @ p["kernel"].astype(dtype) \
+        + p["bias"].astype(dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class Decoder:
+    """z (..., latent_dim) -> tanh(z W1 + b1) W2 + b2 (..., data_dim)."""
     latent_dim: int
     hidden: int
+    data_dim: int
     dtype: Any = jnp.float32
 
-    @nn.compact
-    def __call__(self, x):
-        h = nn.tanh(nn.Dense(self.hidden, dtype=self.dtype)(x))
-        mu = nn.Dense(self.latent_dim, dtype=self.dtype)(h) \
-            .astype(jnp.float32)
-        log_sigma = nn.Dense(self.latent_dim, dtype=self.dtype)(h) \
+    def init(self, key):
+        k1, k2 = jax.random.split(key)
+        return {"hidden": _dense_init(k1, self.latent_dim, self.hidden),
+                "out": _dense_init(k2, self.hidden, self.data_dim)}
+
+    def apply(self, params, z):
+        h = jnp.tanh(_dense(params["hidden"], z, self.dtype))
+        return _dense(params["out"], h, self.dtype).astype(jnp.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class Encoder:
+    """x (..., data_dim) -> (mu, log_sigma), each (..., latent_dim)."""
+    data_dim: int
+    hidden: int
+    latent_dim: int
+    dtype: Any = jnp.float32
+
+    def init(self, key):
+        k1, k2, k3 = jax.random.split(key, 3)
+        return {"hidden": _dense_init(k1, self.data_dim, self.hidden),
+                "mu": _dense_init(k2, self.hidden, self.latent_dim),
+                "log_sigma": _dense_init(k3, self.hidden, self.latent_dim)}
+
+    def apply(self, params, x):
+        h = jnp.tanh(_dense(params["hidden"], x, self.dtype))
+        mu = _dense(params["mu"], h, self.dtype).astype(jnp.float32)
+        log_sigma = _dense(params["log_sigma"], h, self.dtype) \
             .astype(jnp.float32)
         return mu, jnp.clip(log_sigma, -6.0, 3.0)
 
@@ -103,10 +134,9 @@ def make_data(cfg: Config):
 def make_model_and_guide(cfg: Config, x):
     n = int(x.shape[0])
     cdtype = jnp.dtype(cfg.compute_dtype)
-    dec = Decoder(cfg.data_dim, cfg.hidden, dtype=cdtype)
-    enc = Encoder(cfg.latent_dim, cfg.hidden, dtype=cdtype)
-    key0 = jax.random.PRNGKey(cfg.seed)
-    dec_init = dec.init(key0, jnp.zeros((1, cfg.latent_dim)))
+    dec = Decoder(cfg.latent_dim, cfg.hidden, cfg.data_dim, dtype=cdtype)
+    enc = Encoder(cfg.data_dim, cfg.hidden, cfg.latent_dim, dtype=cdtype)
+    dec_init = dec.init(jax.random.PRNGKey(cfg.seed))
     b = cfg.batch_size
     scale = n / b
 
@@ -124,7 +154,7 @@ def make_model_and_guide(cfg: Config, x):
             sample("obs", dist.Normal(mu, sigma_x).to_event(2), obs=xb)
 
     def guide_init(key):
-        return enc.init(key, jnp.zeros((1, cfg.data_dim)))
+        return enc.init(key)
 
     def guide_sample(params, key, sample_shape, stop_gradient_q, ctx):
         sub = (ctx or {}).get("subsample") or {}
@@ -182,133 +212,36 @@ def run_svi(cfg: Config, key=None, data_sharding=None):
     }
 
 
-def fused_init(cfg: Config, key):
-    """Initialize fused-trainer leaves (ops/fused_vae.LEAVES layout) with
-    the same distributions flax uses (lecun-normal kernels, zero biases)
-    and the same sigma_x init (0.5) as the `param` site in `model`."""
-    from ..ops import fused_vae as fv
+def local_posterior_model(cfg: Config, dec, dec_params, sigma_x, x_batch):
+    """The model over the local latents z of ``x_batch`` for a fixed
+    decoder."""
+    nb = int(x_batch.shape[0])
 
-    shapes = fv.leaf_shapes(
-        fv.FusedVAEDims(cfg.num_data, cfg.data_dim, cfg.hidden,
-                        cfg.latent_dim, cfg.batch_size))
-    params, m, v = {}, {}, {}
-    for i, name in enumerate(fv.LEAVES):
-        s = shapes[name]
-        if name == "usig":
-            params[name] = jnp.full(s, float(np.log(0.5)))
-        elif name.startswith("w"):
-            params[name] = (jax.random.truncated_normal(
-                jax.random.fold_in(key, i), -2.0, 2.0, s)
-                / np.sqrt(s[0]))
-        else:
-            params[name] = jnp.zeros(s)
-        m[name] = jnp.zeros(s)
-        v[name] = jnp.zeros(s)
-    return params, m, v
+    def model():
+        z = sample(
+            "z", dist.Normal(0.0, 1.0).expand((nb, cfg.latent_dim))
+            .to_event(2)
+        )
+        mu = dec.apply(dec_params, z)
+        sample("obs", dist.Normal(mu, sigma_x).to_event(2), obs=x_batch)
 
-
-def fused_to_flax(params):
-    """Fused decoder leaves -> the flax Decoder param pytree (so recon /
-    NUTS reuse works on fused-trained parameters)."""
-    return {"params": {
-        "Dense_0": {"kernel": params["w1d"], "bias": params["b1d"][0]},
-        "Dense_1": {"kernel": params["w2d"], "bias": params["b2d"][0]},
-    }}
-
-
-def run_svi_fused(cfg: Config, key=None):
-    """Whole-run-in-VMEM Pallas trainer (ops/fused_vae.py): same model,
-    same estimator, one kernel launch for all `cfg.steps` steps."""
-    from ..ops import fused_vae as fv
-
-    key = key if key is not None else jax.random.PRNGKey(cfg.seed)
-    x = make_data(cfg)
-    params, m, v = fused_init(cfg, key)
-    seed = int(jax.random.randint(jax.random.fold_in(key, 7), (),
-                                  0, 2**31 - 1))
-    # VMEM-resident exact gather when the (lane-padded) dataset fits;
-    # HBM block sampling (one-time shuffle) otherwise
-    vmem_bytes = cfg.num_data * max(cfg.data_dim, 128) * 4
-    gather = "onehot" if vmem_bytes <= 6 * 2**20 else "block"
-    if gather == "block":
-        perm = jax.random.permutation(jax.random.fold_in(key, 8),
-                                      cfg.num_data)
-        x = x[perm]
-    params, m, v, losses = fv.fused_train(
-        x, params, m, v, steps=cfg.steps, lr=cfg.lr, seed=seed,
-        batch=cfg.batch_size, gather=gather,
-        interpret=jax.default_backend() != "tpu")
-    sigma_x = float(jnp.exp(params["usig"][0, 0]))
-    return {
-        "x": x,
-        "params": params,
-        "decoder_params": fused_to_flax(params),
-        "sigma_x": sigma_x,
-        "final_elbo": -float(losses[-1]),
-        "losses": np.asarray(losses),
-        "opt_state": (m, v),
-    }
+    return model
 
 
 def local_posterior_mcmc(cfg: Config, dec, dec_params, sigma_x, x_batch,
                          key, chain_sharding=None, shared_adapt=None):
     """NUTS over the local latents z for a fixed decoder — the
-    1024-sharded-chain workload of configs[4]."""
-    nb = int(x_batch.shape[0])
-
-    def model():
-        z = sample(
-            "z", dist.Normal(0.0, 1.0).expand((nb, cfg.latent_dim))
-            .to_event(2)
-        )
-        mu = dec.apply(dec_params, z)
-        sample("obs", dist.Normal(mu, sigma_x).to_event(2), obs=x_batch)
-
+    1024-chain workload of configs[4]."""
     if shared_adapt is None:
         # pooled adaptation is the right default once chains are many
         shared_adapt = cfg.num_chains >= 64
-    mcmc = MCMC(model=model, num_warmup=cfg.num_warmup,
+    mcmc = MCMC(model=local_posterior_model(cfg, dec, dec_params, sigma_x,
+                                            x_batch),
+                num_warmup=cfg.num_warmup,
                 num_samples=cfg.num_samples, num_chains=cfg.num_chains,
                 chain_sharding=chain_sharding, init_step_size=0.2,
                 shared_adapt=shared_adapt)
     return mcmc, mcmc.run(key)
-
-
-def local_posterior_mcmc_fused(cfg: Config, dec, dec_params, sigma_x,
-                               x_batch, *, max_doublings=6,
-                               block_chains=64, mm_dtype="split",
-                               interpret=False, run_key=None):
-    """The configs[4] local-posterior NUTS workload routed through the
-    fused Pallas transition (ops/fused_nuts.py): the same model density and
-    the same MCMC driver (pooled adaptation, Welford windows, diagnostics)
-    with the per-transition tree build running as one VMEM-resident kernel
-    launch.  Returns the MCMC object (call ``.run(key)`` / bench it)."""
-    from ..ops.fused_nuts import make_batched_transition
-
-    nb = int(x_batch.shape[0])
-
-    def model():
-        z = sample(
-            "z", dist.Normal(0.0, 1.0).expand((nb, cfg.latent_dim))
-            .to_event(2)
-        )
-        mu = dec.apply(dec_params, z)
-        sample("obs", dist.Normal(mu, sigma_x).to_event(2), obs=x_batch)
-
-    block_chains = min(block_chains, cfg.num_chains)
-    if cfg.num_chains % block_chains:
-        raise ValueError("block_chains must divide num_chains")
-    bt = make_batched_transition(
-        dec_params, float(sigma_x), x_batch, latent_dim=cfg.latent_dim,
-        hidden=cfg.hidden, max_doublings=max_doublings,
-        block_chains=block_chains, mm_dtype=mm_dtype, interpret=interpret)
-    mcmc = MCMC(model=model, num_warmup=cfg.num_warmup,
-                num_samples=cfg.num_samples, num_chains=cfg.num_chains,
-                init_step_size=0.2, shared_adapt=True,
-                batched_transition=bt)
-    if run_key is not None:
-        return mcmc, mcmc.run(run_key)
-    return mcmc
 
 
 def run(cfg: Config, key=None):

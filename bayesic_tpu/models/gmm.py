@@ -15,6 +15,7 @@ Run: ``python -m bayesic_tpu.models.gmm --smoke true``
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +24,13 @@ import numpy as np
 from .. import dist
 from ..core import sample
 from ..infer.smc import SMC
+from ..ops.gmm_logprob import (
+    _reference_value_and_grad,
+    gmm_loglik,
+    gmm_loglik_grad,
+    gmm_loglik_reference,
+    use_kernel,
+)
 from ..utils.config import dump_config, parse_config
 from .common import bench_line, timed_steps
 
@@ -69,12 +77,11 @@ def make_model(cfg: Config, x):
     return model
 
 
-def make_batched_loglik(info, unravel, x):
-    """Batched likelihood over flat particle vectors using the fused Pallas
-    gmm_loglik kernel (SURVEY.md C14b); plugs into SMC's
-    ``batched_loglik=`` to bypass vmap-of-replay on the data term."""
-    from ..ops.gmm_logprob import gmm_loglik
-
+def make_batched_loglik(info, unravel, x, interpret=False, reference=False):
+    """Batched likelihood over flat particle vectors using the fused
+    gmm_loglik kernel (SURVEY.md C14b), or with ``reference`` the plain
+    reference; plugs into SMC's ``batched_loglik=`` to bypass
+    vmap-of-replay on the data term."""
     t_w = info.transforms["weights"]
     t_s = info.transforms["sigma"]
 
@@ -82,19 +89,23 @@ def make_batched_loglik(info, unravel, x):
         u = unravel(qs)
         w = t_w.forward(u["weights"])          # (P, K) simplex
         sig = t_s.forward(u["sigma"])          # (P, K)
-        return gmm_loglik(x, jnp.log(w), u["mus"], sig)
+        if reference:
+            return gmm_loglik_reference(x, jnp.log(w), u["mus"], sig)
+        return gmm_loglik(x, jnp.log(w), u["mus"], sig, interpret)
 
     return loglik
 
 
-def make_batched_loglik_grad(info, unravel, ravel, x):
+def make_batched_loglik_grad(info, unravel, ravel, x, interpret=False,
+                             reference=False):
     """Fused value+gradient of the likelihood wrt the flat UNCONSTRAINED
     particle vector — the SMC mutation hot path (SURVEY.md C14a): the
-    kernel returns (ll, d/dlogw, d/dmus, d/dsig) in one launch and the
-    (elementwise, XLA-fused) transform chain pulls the gradient back to
-    unconstrained space via jax.vjp — no hand-derived stick-breaking."""
-    from ..ops.gmm_logprob import gmm_loglik_grad
-
+    kernel (or with ``reference`` the reference's ``jax.grad``) returns
+    (ll, d/dlogw, d/dmus, d/dsig) and the (elementwise, XLA-fused)
+    transform chain pulls the gradient back to unconstrained space via
+    jax.vjp — no hand-derived stick-breaking."""
+    vg = (_reference_value_and_grad if reference else
+          functools.partial(gmm_loglik_grad, interpret=interpret))
     t_w = info.transforms["weights"]
     t_s = info.transforms["sigma"]
 
@@ -107,26 +118,11 @@ def make_batched_loglik_grad(info, unravel, ravel, x):
             return jnp.log(w), sig
 
         (logw, sig), vjp_t = jax.vjp(to_params, u["weights"], u["sigma"])
-        ll, dlogw, dmus, dsig = gmm_loglik_grad(x, logw, u["mus"], sig)
+        ll, dlogw, dmus, dsig = vg(x, logw, u["mus"], sig)
         duw, dus = vjp_t((dlogw, dsig))
         return ll, ravel({"weights": duw, "mus": dmus, "sigma": dus})
 
     return loglik_vg
-
-
-def make_batched_mutation(cfg: Config, x, interpret=None,
-                          target_accept=0.65):
-    """Whole-stage fused mutation (ops/fused_smc_gmm.py, VERDICT r4
-    item 5): one kernel launch per stage runs every HMC transition and
-    returns the final particles' log-likelihood for the next stage's
-    reweight.  Plugs into SMC's ``batched_mutation=``."""
-    from ..ops.fused_smc_gmm import make_batched_mutation as _mk
-
-    k, d = cfg.num_components, cfg.data_dim
-    dim = (k - 1) + k * d + k
-    return _mk(x, k, d, dim, kmut=cfg.mutation_steps,
-               lsteps=cfg.leapfrog_steps, target_accept=target_accept,
-               interpret=interpret)
 
 
 def _true_loglik(x, truth):
@@ -162,31 +158,42 @@ def predictive_loglik(res, x, cfg, num_particles_eval=256):
     return float(avg.mean())
 
 
-def run(cfg: Config, key=None, particle_sharding=None, use_pallas=None,
-        smc_kwargs=None):
+def make_smc(cfg: Config, x, kernel, interpret=False, reference=False,
+             **smc_kwargs):
+    """GMM SMC; with ``kernel`` the likelihood and its gradient come from
+    the fused gmm_loglik kernel (ops/gmm_logprob.py) through SMC's
+    ``batched_loglik`` hooks, else from the model's own log-density.
+    ``reference`` puts the plain reference behind the same hooks: timed
+    against the kernel, it separates the kernel's gain from the hooks'."""
+    model = make_model(cfg, x)
+    kw = dict(num_particles=cfg.num_particles,
+              mutation_steps=cfg.mutation_steps,
+              hmc_leapfrog_steps=cfg.leapfrog_steps, **smc_kwargs)
+    smc = SMC(model, **kw)
+    if not kernel:
+        return smc
+    return SMC(model,
+               batched_loglik=make_batched_loglik(
+                   smc.info, smc._unravel, x, interpret, reference),
+               batched_loglik_grad=make_batched_loglik_grad(
+                   smc.info, smc._unravel, smc._ravel, x, interpret,
+                   reference),
+               **kw)
+
+
+def run(cfg: Config, key=None, particle_sharding=None, kernel=None,
+        interpret=False, smc_kwargs=None):
+    """``kernel=None`` takes the kernel where it compiles (a GPU) and the
+    model's own likelihood on the CPU."""
     if cfg.smoke:
         cfg = dataclasses.replace(cfg, num_data=200, num_particles=512,
                                   mutation_steps=2, leapfrog_steps=3)
     key = key if key is not None else jax.random.PRNGKey(cfg.seed)
     x, truth = make_data(cfg)
-    model = make_model(cfg, x)
-    smc_kwargs = smc_kwargs or {}
-    smc = SMC(model, num_particles=cfg.num_particles,
-              mutation_steps=cfg.mutation_steps,
-              hmc_leapfrog_steps=cfg.leapfrog_steps,
-              particle_sharding=particle_sharding, **smc_kwargs)
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if use_pallas:
-        smc = SMC(model, num_particles=cfg.num_particles,
-                  mutation_steps=cfg.mutation_steps,
-                  hmc_leapfrog_steps=cfg.leapfrog_steps,
-                  particle_sharding=particle_sharding,
-                  batched_loglik=make_batched_loglik(
-                      smc.info, smc._unravel, x),
-                  batched_loglik_grad=make_batched_loglik_grad(
-                      smc.info, smc._unravel, smc._ravel, x),
-                  **smc_kwargs)
+    if kernel is None:
+        kernel = use_kernel(interpret)
+    smc = make_smc(cfg, x, kernel, interpret,
+                   particle_sharding=particle_sharding, **(smc_kwargs or {}))
 
     if cfg.bench:
         res, dt = timed_steps(lambda: smc.run(key), warmup_runs=1,

@@ -8,8 +8,8 @@ with Gaussian observation noise the posterior is analytic, giving the
 SURVEY.md C24-style oracle for both samplers and the marginal-likelihood
 path (`dist.MultivariateNormal` + `map_estimate` for hyperparameters).
 
-TPU notes: the kernel matrix is one (n, n) pairwise op + Cholesky at
-trace time (MXU/linalg); every ESS/NUTS step is then a single (n, n) x
+Shape notes: the kernel matrix is one (n, n) pairwise op + Cholesky at
+trace time (matmul/linalg); every ESS/NUTS step is then a single (n, n) x
 (n,) matvec — no per-element work.
 
 Run: ``python -m bayesic_tpu.models.gp --smoke true``

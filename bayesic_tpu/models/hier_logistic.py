@@ -170,67 +170,3 @@ def main(argv=None):
 if __name__ == "__main__":
     main()
 
-
-def fused_nuts_mcmc(num_groups, num_features, x, y, group, *, num_warmup,
-                    num_samples, num_chains=128, target_accept=0.85,
-                    max_doublings=6, block_chains=128, mm_dtype="split",
-                    interpret=False):
-    """The configs[1] full-batch centered NUTS workload routed through the
-    fused Pallas whole-transition kernel (ops/fused_nuts_hier.py): same
-    model density, same MCMC driver (pooled adaptation, Welford windows,
-    diagnostics) with each transition one VMEM-resident kernel launch.
-    Returns the MCMC object (call ``.run(key)`` / bench it).
-
-    Round-5 postmortem (benchmarks/_hier_probe2..10.py): the r4 bench
-    failure (R-hat 36, every tree at the leaf cap, eps -> 1e-5) was NOT
-    the doubling cap — it was ~N(0, 1.3) noise on every potential/
-    kinetic-energy evaluation from bf16-truncated ones-matmul row sums
-    (ops/fused_nuts._rowsum_tile docstring).  Noisy energies cap the MH
-    accept statistic below target at ANY step size, and shared dual
-    averaging then drives eps to zero.  With exact reductions, kk=6
-    converges cleanly at the bench shape (R-hat 1.000, min-ESS 37.8k)
-    and runs ~2x faster than kk=10 (early-warmup trees at 1023 leaves
-    are pure cost); kk up to 11 is supported if a harder posterior needs
-    longer trajectories."""
-    from ..ops.fused_nuts_hier import make_batched_transition_hier
-
-    model = make_model(num_groups, num_features, None, centered=True)
-    bt = make_batched_transition_hier(
-        x, y, group, num_groups, num_features, max_doublings=max_doublings,
-        block_chains=min(block_chains, num_chains), mm_dtype=mm_dtype,
-        interpret=interpret)
-    return MCMC(model=model, num_warmup=num_warmup,
-                num_samples=num_samples, num_chains=num_chains,
-                shared_adapt=True, model_args=(x, y, group),
-                target_accept=target_accept, batched_transition=bt)
-
-
-def run_svi_fused(cfg: Config, key=None):
-    """Whole-run-in-VMEM Pallas trainer (ops/fused_hier.py): same model,
-    same estimator, one kernel launch for all ``cfg.svi_steps`` steps."""
-    from ..ops import fused_hier as fh
-
-    if (cfg.num_groups, cfg.num_features) != (fh.J, fh.D):
-        raise ValueError(
-            f"fused trainer is specialized to J={fh.J}, D={fh.D}")
-    key = key if key is not None else jax.random.PRNGKey(cfg.seed)
-    x, y, group, truth = make_data(cfg)
-    packed = fh.pack_data(x, y, group)
-    perm = jax.random.permutation(jax.random.fold_in(key, 8),
-                                  x.shape[0])
-    packed = packed[perm]
-    seed = int(jax.random.randint(jax.random.fold_in(key, 7), (),
-                                  0, 2**31 - 1))
-    loc, ls = fh.pack_params()
-    loc, ls, opt, losses = fh.fused_train(
-        packed, loc, ls, steps=cfg.svi_steps, lr0=cfg.lr,
-        seed=seed, batch=cfg.batch_size,
-        interpret=jax.default_backend() != "tpu")
-    mean_u, std_u = fh.unpack_stats(loc, ls)
-    return {
-        "packed": packed,
-        "loc": loc, "ls": ls, "opt_state": opt,
-        "mean_u": mean_u, "std_u": std_u,
-        "losses": np.asarray(losses),
-        "truth": truth,
-    }

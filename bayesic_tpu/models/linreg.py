@@ -115,29 +115,3 @@ def main(argv=None):
 if __name__ == "__main__":
     main()
 
-
-def run_svi_fused(cfg: Config, key=None):
-    """Whole-run-in-VMEM Pallas trainer (ops/fused_linreg.py): same model
-    and estimator via the exact Gram sufficient statistics, one kernel
-    launch for all ``cfg.steps`` steps."""
-    from ..ops import fused_linreg as fl
-
-    key = key if key is not None else jax.random.PRNGKey(cfg.seed)
-    x, y, w_true, b_true = make_data(cfg)
-    packed = fl.pack_data(x, y)
-    seed = int(jax.random.randint(jax.random.fold_in(key, 7), (),
-                                  0, 2**31 - 1))
-    loc, ls = fl.pack_params(cfg.dim)
-    loc, ls, opt, losses = fl.fused_train(
-        packed, cfg.dim, cfg.noise, loc, ls, steps=cfg.steps, lr0=cfg.lr,
-        seed=seed, interpret=jax.default_backend() != "tpu")
-    mean_u, std_u = fl.unpack_stats(loc, ls, cfg.dim)
-    mean_ref, cov_ref = analytic_posterior(x, y, cfg.noise)
-    got = np.concatenate([mean_u["w"], [mean_u["b"]]])
-    return {
-        "posterior_mean": got,
-        "analytic_mean": mean_ref,
-        "max_abs_err": float(np.abs(got - mean_ref).max()),
-        "losses": np.asarray(losses),
-        "loc": loc, "ls": ls, "opt_state": opt,
-    }

@@ -96,7 +96,6 @@ def make_model(cfg: Config):
     nu, ni, k = cfg.num_users, cfg.num_items, cfg.num_factors
     n = cfg.num_ratings
     noise = cfg.noise
-    from ..ops.gather import mxu_gather
 
     def model(users, items, ratings):
         u = sample("u", dist.Normal(0.0, 1.0).expand((nu, k)).to_event(2))
@@ -106,11 +105,10 @@ def make_model(cfg: Config):
         m = sample("m", dist.Normal(3.0, 1.0))
         with plate("ratings", n, subsample_size=cfg.batch_size) as idx:
             uid, iid = users[idx], items[idx]
-            # MXU one-hot gathers: +52% step throughput on TPU (ops/gather)
-            uu = mxu_gather(u, uid)
-            vv = mxu_gather(v, iid)
-            mean = (jnp.sum(uu * vv, -1) + mxu_gather(bu, uid)
-                    + mxu_gather(bi, iid) + m)
+            uu = jnp.take(u, uid, axis=0)
+            vv = jnp.take(v, iid, axis=0)
+            mean = (jnp.sum(uu * vv, -1) + jnp.take(bu, uid)
+                    + jnp.take(bi, iid) + m)
             sample("obs", dist.Normal(mean, noise).to_event(1),
                    obs=ratings[idx])
 
@@ -118,11 +116,11 @@ def make_model(cfg: Config):
 
 
 # ---------------------------------------------------------------------------
-# Dense sufficient-statistics path (TPU-first redesign of configs[2])
+# Dense sufficient-statistics path (a matmul-shaped redesign of configs[2])
 #
-# The sparse mini-batch ELBO is gather/scatter-bound on TPU (one-hot MXU
-# gathers run at ~9% MFU because only k=16 of 128 lanes are useful).  But
-# the rating grid is DENSE by TPU standards (1M ratings over 3000x1500 =
+# The sparse mini-batch ELBO is gather/scatter-bound: each step moves k=16
+# floats per gathered row and does almost no arithmetic on them.  But the
+# rating grid is DENSE enough for matmuls (1M ratings over 3000x1500 =
 # 22% fill), and the Gaussian likelihood depends on the data only through
 # per-cell sufficient statistics:
 #

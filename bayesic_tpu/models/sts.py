@@ -9,8 +9,8 @@ enters the inference state. Afterwards `smooth()` decomposes the series
 into trend/seasonal components and `forecast()` propagates the filtered
 terminal state h steps ahead with exact Gaussian intervals.
 
-TPU notes: `log_prob` uses the temporally parallel Kalman filter
-(`lgss.py` — log₂(T) rounds of batched MXU matmuls via
+Shape notes: `log_prob` uses the temporally parallel Kalman filter
+(`lgss.py` — log₂(T) rounds of batched matmuls via
 `lax.associative_scan`), so each NUTS leapfrog step on a T=512 series is
 ~9 parallel rounds instead of a 512-long serial dependency chain.
 

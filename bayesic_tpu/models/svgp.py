@@ -9,7 +9,7 @@ written directly in the DSL:
   * whitened inducing latents ``v ~ N(0, I_M)`` (u = L_Z v, the same
     whitening trick as gp.py — mean-field/full-rank guides mix well);
   * per-batch projection ``f = A v`` with ``A = K_xZ L_Z^{-T}`` — one
-    (B, M) triangular solve + matvec, MXU-friendly;
+    (B, M) triangular solve + matvec;
   * the Titsias variance-correction term enters as a ``factor`` site
     inside the subsampled plate, so the plate's N/B scaling makes the
     whole bound an unbiased estimate of the full-data SVGP ELBO.

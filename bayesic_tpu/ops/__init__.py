@@ -1,23 +1,10 @@
-"""Pallas TPU kernel tier with jnp fallbacks (SURVEY.md C14).
+"""Hand-written kernels, each beside its plain-JAX reference (SURVEY.md C14).
 
-Every kernel is gated by the BAYESIC_PALLAS env flag:
-  auto (default) - Pallas on TPU, jnp fallback elsewhere
-  1              - force Pallas (interpret mode off-TPU)
-  0              - force jnp fallbacks
-  interpret      - Pallas interpreter everywhere (kernel-logic testing)
-
-The round-1 elementwise leapfrog-phase kernels (ops/leapfrog.py) were
-removed: they never engaged on any shipped workload (dim%128 guard) and XLA
-fuses those phases anyway; the real C14a kernel is gmm_loglik_grad — the
-leapfrog's gradient eval fused into one launch.
+``gmm_logprob`` holds the one kernel: the GMM log-likelihood and its
+gradient, a Pallas kernel compiled through Triton on a GPU.  On the CPU
+the reference is the path; tests run the kernel in the Pallas interpreter.
 """
 
-from .fused_vae import fused_train, reference_train
-from .gather import gather_reference, mxu_gather
 from .gmm_logprob import gmm_loglik, gmm_loglik_grad, gmm_loglik_reference
 
-__all__ = [
-    "gmm_loglik", "gmm_loglik_grad", "gmm_loglik_reference",
-    "mxu_gather", "gather_reference",
-    "fused_train", "reference_train",
-]
+__all__ = ["gmm_loglik", "gmm_loglik_grad", "gmm_loglik_reference"]

@@ -1,31 +1,34 @@
-"""Fused GMM log-likelihood (+ gradient) Pallas TPU kernel.
-
-Blueprint: SURVEY.md C14(b) — "fused joint-log-prob+grad for the hot models
-(GMM responsibilities ...)" (BASELINE.json north_star: "log-prob kernels
-hand-tuned in Pallas where XLA fusion falls short").
+"""Fused GMM log-likelihood and gradient: a Pallas kernel through Triton.
 
 The op: for a batch of P particles, each holding a K-component isotropic
 Gaussian mixture (log-weights (P,K), means (P,K,D), scales (P,K)), compute
 ``out[p] = sum_n logsumexp_k [ logw_pk + log N(x_n; mu_pk, sig_pk I) ]``
-over a shared dataset x (N,D).
+over a shared dataset x (N,D), and optionally its gradient with respect to
+the three parameter arrays.
 
-Why Pallas: the jnp formulation materializes a (P,K,N) tensor in HBM; the
-kernel streams x through VMEM in (D,BN) blocks and keeps the whole
-K-logsumexp in registers, so HBM traffic is one pass over x per particle
-block and one scalar write per particle.  The squared distance uses the MXU:
-``|x-mu|^2 = |x|^2 - 2 mu.x + |mu|^2`` with the cross term as a
-(PB*K, D) @ (D, BN) matmul.  The backward pass (responsibilities ->
-parameter grads) has the same structure with the reductions
-``resp @ x^T`` also on the MXU.
+Why a kernel: ``jax.grad`` of the plain formulation materialises the
+(P,K,N) responsibilities in device memory (196 MB per evaluation at the
+benchmark shape P=8192, N=2000, K=3), and the SMC mutation makes about 30
+evaluations per stage.  The kernel keeps x (16 KB) cache-resident and reads
+it once per particle block: each program owns a block of particles, walks N
+in short steps of an in-kernel loop, and accumulates the
+log-likelihood together with the sufficient sums behind the gradient
+(``sum_n r``, ``sum_n r q``, ``sum_n r (x - mu)``) in registers.  Only
+O(P*K*D) numbers are written.
 
-Layout: x is passed TRANSPOSED as (D, N) so the long N axis sits on the
-128-wide lane dimension (D is tiny: 1-16); PB=8 particles per block satisfy
-the (8, 128) f32 tile constraint.  Grid = (P/PB, ceil(N/BN)); TPU grids run
-sequentially per core, so out[p] accumulates across N blocks with a
-``@pl.when(first block)`` init.
+Layout: every per-particle array travels transposed, one row per (k, d)
+entry and particles along the columns, so a program's loads are
+contiguous power-of-two vectors of particles.  x travels as (D, N)
+rows.  D and K are unrolled statically, so neither needs padding; the tail
+of N is masked, and padded particles carry sigma = 1 and are sliced off.
+The squared distance is formed elementwise as ``sum_d (x_d - mu_d)^2`` in
+float32, with no matrix product, so no TF32 rounding enters the energies.
 
-``gmm_loglik`` is the public entry: custom_vjp, picks the kernel on TPU and
-falls back to pure jnp elsewhere (the SURVEY.md §4.7 parity oracle).
+Dispatch is explicit (``gmm_loglik`` / ``gmm_loglik_grad``):
+
+* on a GPU the compiled kernel runs, or the call raises;
+* on the CPU the plain reference runs (the documented CPU path);
+* ``interpret=True`` runs the kernel in the Pallas interpreter (tests).
 """
 
 from __future__ import annotations
@@ -38,46 +41,13 @@ import jax.numpy as jnp
 from jax.scipy.special import logsumexp
 
 _LOG_2PI = math.log(2.0 * math.pi)
-_BN = 512   # lane-dim block of data points
-# Matmul precision split (measured on v5e at the benchmark shape,
-# P=8192, N=2000, K=3: 0.93 ms/eval at HIGHEST everywhere vs 0.38 at
-# DEFAULT everywhere, the mutation's entire cost):
-#   * VALUE dots (the lifted per-point log-density) go through
-#     _dot_3x — a hand-rolled hi/lo bf16 split running 3 single-pass
-#     MXU dots (Mosaic lowers only DEFAULT and HIGHEST; HIGHEST is a
-#     6-pass f32 emulation, 2x the work of the 3-pass split for the
-#     same ~f32 accuracy).  pe enters MH accept ratios, so it needs
-#     f32-level accuracy (a plain bf16 pass is +-0.1/point, +-5 total).
-#   * GRADIENT dots run one DEFAULT (bf16) pass: leapfrog with ANY
-#     fixed gradient field is volume-preserving and reversible, and the
-#     multinomial/MH weights use the exactly-computed potential, so
-#     gradient precision changes trajectory quality only, never the
-#     invariant distribution (same argument as ops/fused_nuts.py).
-_GRAD_DOT_PRECISION = jax.lax.Precision.DEFAULT
+# (particles per program, data points per loop step, warps) for the value
+# and the value+grad kernels, from a sweep on an H100 at P=8192, N=2000,
+# K=3, D=2 (PERF.md, PR 1).  The gradient carries K*(2+D)+1 running
+# (PB, BN) sums, so it wants a narrow step: past about 16 elements per
+# thread per sum it spills registers and slows by 3x or more.
+_BLOCK = {False: (16, 64, 4), True: (16, 16, 4)}
 
-
-def _dot_3x(a, b, dims):
-    """f32-accurate dot via 3 single-pass bf16 MXU products:
-    a·b = hi_a·hi_b + hi_a·lo_b + lo_a·hi_b (+ O(2^-16 rel) dropped)."""
-    a_hi = a.astype(jnp.bfloat16)
-    b_hi = b.astype(jnp.bfloat16)
-    a_lo = (a - a_hi.astype(jnp.float32)).astype(jnp.bfloat16)
-    b_lo = (b - b_hi.astype(jnp.float32)).astype(jnp.bfloat16)
-    dot = functools.partial(jax.lax.dot_general, dimension_numbers=dims,
-                            preferred_element_type=jnp.float32)
-    return dot(a_hi, b_hi) + dot(a_hi, b_lo) + dot(a_lo, b_hi)
-# Particles per block.  8 (one f32 sublane tile) made the grid
-# launch-bound: at the benchmark shape (P=8192, N=2000) the grid was
-# (1024, 4) = 4096 blocks and the per-block fixed cost dominated the SMC
-# mutation (~0.9 ms per value+grad launch, 30 launches per stage).  128
-# keeps every per-block buffer comfortably in VMEM (the largest
-# intermediate is K x (PB, BN) f32 = 768 KB) while cutting the grid 16x.
-_PB = 128
-
-
-# ---------------------------------------------------------------------------
-# pure-jnp fallback (correctness oracle)
-# ---------------------------------------------------------------------------
 
 def gmm_loglik_reference(x, log_w, mus, sigmas):
     """x (N,D); log_w (...,K); mus (...,K,D); sigmas (...,K) -> (...)."""
@@ -93,413 +63,171 @@ def gmm_loglik_reference(x, log_w, mus, sigmas):
     return jnp.sum(logsumexp(ll, axis=-2), -1)
 
 
+def _reference_value_and_grad(x, log_w, mus, sigmas):
+    def f(lw, mu, sg):
+        return jnp.sum(gmm_loglik_reference(x, lw, mu, sg))
+
+    ll = gmm_loglik_reference(x, log_w, mus, sigmas)
+    return (ll,) + jax.grad(f, argnums=(0, 1, 2))(log_w, mus, sigmas)
+
+
 # ---------------------------------------------------------------------------
-# Pallas kernels (all-2D layouts: Mosaic cannot reshape across sublane/lane
-# dims, so mus travels flattened as (P, K*D) and every in-kernel value is
-# rank-2)
+# the kernel
 # ---------------------------------------------------------------------------
 
-def _ll_terms(xt_ref, logw_ref, musf_ref, sig_ref, *, k, d, bn):
-    """Per-component log-density rows: returns (list of (PB,BN) ll_k,
-    list of (PB,BN) q_k, xb)."""
-    xb = xt_ref[...]                                     # (D, BN)
-    x2 = jnp.sum(xb * xb, axis=0, keepdims=True)         # (1, BN)
-    lls, qs = [], []
-    for kk in range(k):
-        mu_k = musf_ref[:, kk * d:(kk + 1) * d]          # (PB, D)
-        cross = _dot_3x(mu_k, xb, (((1,), (0,)), ((), ())))  # (PB, BN)
-        mu2 = jnp.sum(mu_k * mu_k, axis=1, keepdims=True)
-        sig_k = sig_ref[:, kk:kk + 1]                    # (PB, 1)
-        logw_k = logw_ref[:, kk:kk + 1]
-        q_k = x2 - 2.0 * cross + mu2                     # (PB, BN)
-        ll_k = (
-            logw_k - q_k * (0.5 / (sig_k * sig_k))
-            - d * jnp.log(sig_k) - 0.5 * d * _LOG_2PI
-        )
-        lls.append(ll_k)
-        qs.append(q_k)
-    return lls, qs, xb
-
-
-def _streaming_lse(lls):
-    m = lls[0]
-    s = jnp.ones_like(m)
-    for ll_k in lls[1:]:
-        new_m = jnp.maximum(m, ll_k)
-        s = s * jnp.exp(m - new_m) + jnp.exp(ll_k - new_m)
-        m = new_m
-    return m + jnp.log(s)
-
-
-def _mask(n, bn):
+def _kernel(xt_ref, lw_ref, mu_ref, sg_ref, *out_refs, k, d, n, nb, pb, bn,
+            with_grad):
     from jax.experimental import pallas as pl
 
-    j = jax.lax.broadcasted_iota(jnp.int32, (1, bn), 1) + pl.program_id(1) * bn
-    return j < n
+    cols = pl.ds(pl.program_id(0) * pb, pb)
+    mu = [[mu_ref[kk * d + dd, cols] for dd in range(d)] for kk in range(k)]
+    sg = [sg_ref[kk, cols] for kk in range(k)]                  # (PB,)
+    half_prec = [0.5 / (s * s) for s in sg]
+    const = [lw_ref[kk, cols] - d * jnp.log(sg[kk]) - 0.5 * d * _LOG_2PI
+             for kk in range(k)]
+
+    def body(j, acc):
+        rows = pl.ds(j * bn, bn)
+        xs = [xt_ref[dd, rows][None, :] for dd in range(d)]    # (1, BN)
+        valid = (j * bn + jnp.arange(bn) < n)[None, :]
+        qs, lls = [], []
+        for kk in range(k):
+            q = sum(jnp.square(xs[dd] - mu[kk][dd][:, None])
+                    for dd in range(d))                         # (PB, BN)
+            qs.append(q)
+            lls.append(const[kk][:, None] - q * half_prec[kk][:, None])
+        m = functools.reduce(jnp.maximum, lls)
+        lse = m + jnp.log(sum(jnp.exp(ll - m) for ll in lls))
+        # elementwise partial sums; the one cross-lane reduction per
+        # accumulator happens after the loop
+        ll_acc = acc[0] + jnp.where(valid, lse, 0.0)
+        if not with_grad:
+            return (ll_acc,)
+        r_acc, rq_acc, rd_acc = acc[1:]
+        r_new, rq_new, rd_new = [], [], []
+        for kk in range(k):
+            r = jnp.where(valid, jnp.exp(lls[kk] - lse), 0.0)
+            r_new.append(r_acc[kk] + r)
+            rq_new.append(rq_acc[kk] + r * qs[kk])
+            rd_new.append(tuple(
+                rd_acc[kk][dd] + r * (xs[dd] - mu[kk][dd][:, None])
+                for dd in range(d)))
+        return ll_acc, tuple(r_new), tuple(rq_new), tuple(rd_new)
+
+    zero = jnp.zeros((pb, bn), jnp.float32)
+    acc0 = (zero,)
+    if with_grad:
+        acc0 += ((zero,) * k, (zero,) * k, ((zero,) * d,) * k)
+    acc = jax.tree_util.tree_map(lambda a: jnp.sum(a, axis=1),
+                                 jax.lax.fori_loop(0, nb, body, acc0))
+
+    out_refs[0][cols] = acc[0]
+    if with_grad:
+        _, dlw_ref, dmu_ref, dsg_ref = out_refs
+        r_sum, rq_sum, rd_sum = acc[1:]
+        for kk in range(k):
+            s = sg[kk]
+            dlw_ref[kk, cols] = r_sum[kk]
+            for dd in range(d):
+                dmu_ref[kk * d + dd, cols] = rd_sum[kk][dd] / (s * s)
+            dsg_ref[kk, cols] = (rq_sum[kk] / (s * s * s)
+                                 - d * r_sum[kk] / s)
 
 
-def _fwd_kernel(xt_ref, logw_ref, musf_ref, sig_ref, out_ref, *, k, d, n,
-                bn):
+def _kernel_call(x, log_w, mus, sigmas, *, with_grad, interpret):
     from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as plgpu
 
-    lls, _, _ = _ll_terms(xt_ref, logw_ref, musf_ref, sig_ref, k=k, d=d,
-                          bn=bn)
-    lse = _streaming_lse(lls)                            # (PB, BN)
-    block = jnp.sum(jnp.where(_mask(n, bn), lse, 0.0), axis=1,
-                    keepdims=True)
-
-    @pl.when(pl.program_id(1) == 0)
-    def _():
-        out_ref[...] = jnp.zeros_like(out_ref)
-
-    out_ref[...] += block
-
-
-def _bwd_kernel(xt_ref, logw_ref, musf_ref, sig_ref, ct_ref,
-                dlogw_ref, dmusf_ref, dsig_ref, *, k, d, n, bn):
-    from jax.experimental import pallas as pl
-
-    lls, qs, xb = _ll_terms(xt_ref, logw_ref, musf_ref, sig_ref, k=k, d=d,
-                            bn=bn)
-    lse = _streaming_lse(lls)
-    mask = _mask(n, bn)
-    ct = ct_ref[...]                                     # (PB, 1)
-
-    dlogw_cols, dmus_cols, dsig_cols = [], [], []
-    for kk in range(k):
-        resp_k = jnp.where(mask, jnp.exp(lls[kk] - lse), 0.0)   # (PB, BN)
-        r_sum = jnp.sum(resp_k, axis=1, keepdims=True)          # (PB, 1)
-        rq_sum = jnp.sum(resp_k * qs[kk], axis=1, keepdims=True)
-        rx = jax.lax.dot_general(
-            resp_k, xb, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=_GRAD_DOT_PRECISION,
-        )                                                        # (PB, D)
-        mu_k = musf_ref[:, kk * d:(kk + 1) * d]
-        sig_k = sig_ref[:, kk:kk + 1]
-        inv_s2 = 1.0 / (sig_k * sig_k)
-        dlogw_cols.append(ct * r_sum)
-        dmus_cols.append(ct * (rx - mu_k * r_sum) * inv_s2)
-        dsig_cols.append(
-            ct * (rq_sum * inv_s2 / sig_k - d * r_sum / sig_k)
-        )
-
-    dlogw = jnp.concatenate(dlogw_cols, axis=1)          # (PB, K)
-    dmusf = jnp.concatenate(dmus_cols, axis=1)           # (PB, K*D)
-    dsig = jnp.concatenate(dsig_cols, axis=1)            # (PB, K)
-
-    @pl.when(pl.program_id(1) == 0)
-    def _():
-        dlogw_ref[...] = jnp.zeros_like(dlogw_ref)
-        dmusf_ref[...] = jnp.zeros_like(dmusf_ref)
-        dsig_ref[...] = jnp.zeros_like(dsig_ref)
-
-    dlogw_ref[...] += dlogw
-    dmusf_ref[...] += dmusf
-    dsig_ref[...] += dsig
-
-
-def _pad_particles(arrs, p):
-    pad = (-p) % _PB
-    if pad == 0:
-        return arrs, p
-    out = []
-    for a in arrs:
-        width = [(0, pad)] + [(0, 0)] * (a.ndim - 1)
-        fill = 1.0 if a is arrs[-1] else 0.0   # sigmas padded with 1 (log-safe)
-        out.append(jnp.pad(a, width, constant_values=fill))
-    return out, p + pad
-
-
-def _grid_and_x(x):
-    from jax.experimental import pallas as pl
-
+    pb, bn, num_warps = _BLOCK[with_grad]
+    p0, k = log_w.shape
     n, d = x.shape
-    nb = pl.cdiv(n, _BN)
-    xt = jnp.pad(x.T, ((0, 0), (0, nb * _BN - n)))
-    return xt, nb, n, d
+    pad = (-p0) % pb
+    p = p0 + pad
+    nb = pl.cdiv(n, bn)
+    f32 = jnp.float32
 
+    def cols(a, fill=0.0):
+        return jnp.pad(a.astype(f32).T, ((0, 0), (0, pad)),
+                       constant_values=fill)
 
-def _pallas_fwd(x, log_w, mus, sigmas, interpret=False):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    p0, k = log_w.shape
-    musf = mus.reshape(p0, -1)
-    (log_w, musf, sigmas), p = _pad_particles([log_w, musf, sigmas], p0)
-    xt, nb, n, d = _grid_and_x(x)
-
-    kernel = functools.partial(_fwd_kernel, k=k, d=d, n=n, bn=_BN)
-    out = pl.pallas_call(
-        kernel,
-        grid=(p // _PB, nb),
-        in_specs=[
-            pl.BlockSpec((d, _BN), lambda i, j: (0, j),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((_PB, k), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((_PB, k * d), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((_PB, k), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((_PB, 1), lambda i, j: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((p, 1), x.dtype),
+    xt = jnp.pad(x.astype(f32).T, ((0, 0), (0, nb * bn - n)))
+    args = (xt, cols(log_w), cols(mus.reshape(p0, k * d)),
+            cols(sigmas, fill=1.0))
+    out_shape = [jax.ShapeDtypeStruct((p,), f32)]
+    if with_grad:
+        out_shape += [jax.ShapeDtypeStruct((k, p), f32),
+                      jax.ShapeDtypeStruct((k * d, p), f32),
+                      jax.ShapeDtypeStruct((k, p), f32)]
+    outs = pl.pallas_call(
+        functools.partial(_kernel, k=k, d=d, n=n, nb=nb, pb=pb, bn=bn,
+                          with_grad=with_grad),
+        out_shape=out_shape,
+        grid=(p // pb,),
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=2),
         interpret=interpret,
-    )(xt, log_w, musf, sigmas)
-    return out[:p0, 0]
-
-
-def _pallas_bwd(x, log_w, mus, sigmas, ct, interpret=False):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    p0, k = log_w.shape
-    musf = mus.reshape(p0, -1)
-    (log_w, musf, sigmas), p = _pad_particles([log_w, musf, sigmas], p0)
-    ct = jnp.pad(ct, (0, p - p0))
-    xt, nb, n, d = _grid_and_x(x)
-
-    kernel = functools.partial(_bwd_kernel, k=k, d=d, n=n, bn=_BN)
-    dlogw, dmusf, dsig = pl.pallas_call(
-        kernel,
-        grid=(p // _PB, nb),
-        in_specs=[
-            pl.BlockSpec((d, _BN), lambda i, j: (0, j),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((_PB, k), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((_PB, k * d), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((_PB, k), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((_PB, 1), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((_PB, k), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((_PB, k * d), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((_PB, k), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((p, k), x.dtype),
-            jax.ShapeDtypeStruct((p, k * d), x.dtype),
-            jax.ShapeDtypeStruct((p, k), x.dtype),
-        ),
-        interpret=interpret,
-    )(xt, log_w, musf, sigmas, ct[:, None])
-    return dlogw[:p0], dmusf[:p0].reshape(p0, k, d), dsig[:p0]
+        name="gmm_loglik_grad" if with_grad else "gmm_loglik",
+    )(*args)
+    ll = outs[0][:p0]
+    if not with_grad:
+        return ll
+    dlw, dmu, dsg = outs[1:]
+    return (ll, dlw[:, :p0].T, dmu[:, :p0].T.reshape(p0, k, d),
+            dsg[:, :p0].T)
 
 
 # ---------------------------------------------------------------------------
-# public entry with custom VJP + backend dispatch
+# public entry points: explicit dispatch + custom VJP
 # ---------------------------------------------------------------------------
 
-def _use_pallas():
-    import os
+def use_kernel(interpret=False):
+    """The dispatch rule: True when the kernel runs (compiled on a GPU, or
+    interpreted on request), False on the CPU, where the reference is the
+    documented path.  Any other backend is an error."""
+    if interpret:
+        return True
+    backend = jax.default_backend()
+    if backend == "gpu":
+        return True
+    if backend == "cpu":
+        return False
+    raise NotImplementedError(
+        f"gmm_loglik has no path for backend {backend!r}")
 
-    flag = os.environ.get("BAYESIC_PALLAS", "auto")
-    if flag == "0":
-        return False, False
-    if flag == "interpret":
-        return True, True
-    on_tpu = jax.default_backend() == "tpu"
-    if flag == "1":
-        return True, not on_tpu
-    return on_tpu, False          # auto
 
-
-@jax.custom_vjp
-def gmm_loglik(x, log_w, mus, sigmas):
+@functools.partial(jax.custom_vjp, nondiff_argnums=(4,))
+def gmm_loglik(x, log_w, mus, sigmas, interpret=False):
     """Batched GMM log-likelihood: x (N,D), log_w (P,K), mus (P,K,D),
-    sigmas (P,K) -> (P,).  Pallas on TPU, jnp elsewhere."""
-    use, interp = _use_pallas()
-    if use:
-        return _pallas_fwd(x, log_w, mus, sigmas, interpret=interp)
+    sigmas (P,K) -> (P,)."""
+    if use_kernel(interpret):
+        return _kernel_call(x, log_w, mus, sigmas, with_grad=False,
+                            interpret=interpret)
     return gmm_loglik_reference(x, log_w, mus, sigmas)
 
 
-def _vjp_fwd(x, log_w, mus, sigmas):
-    return gmm_loglik(x, log_w, mus, sigmas), (x, log_w, mus, sigmas)
+def _vjp_fwd(x, log_w, mus, sigmas, interpret):
+    ll, dlw, dmu, dsg = gmm_loglik_grad(x, log_w, mus, sigmas,
+                                        interpret=interpret)
+    return ll, (x, dlw, dmu, dsg)
 
 
-def _vjp_bwd(res, ct):
-    x, log_w, mus, sigmas = res
-    use, interp = _use_pallas()
-    if use:
-        dlogw, dmus, dsig = _pallas_bwd(x, log_w, mus, sigmas, ct,
-                                        interpret=interp)
-    else:
-        def f(lw, mu, sg):
-            return jnp.sum(gmm_loglik_reference(x, lw, mu, sg) * ct)
-
-        dlogw, dmus, dsig = jax.grad(f, argnums=(0, 1, 2))(
-            log_w, mus, sigmas
-        )
-    # the data cotangent is NOT implemented (the SMC hot path never
-    # differentiates wrt x); NaN instead of silent zeros so an accidental
-    # data-gradient consumer fails loudly (r2 review finding)
-    return jnp.full_like(x, jnp.nan), dlogw, dmus, dsig
+def _vjp_bwd(interpret, res, ct):
+    x, dlw, dmu, dsg = res
+    # the data cotangent is not implemented (no consumer differentiates
+    # wrt x); NaN instead of silent zeros so an accidental consumer fails
+    # loudly
+    return (jnp.full_like(x, jnp.nan), ct[:, None] * dlw,
+            ct[:, None, None] * dmu, ct[:, None] * dsg)
 
 
 gmm_loglik.defvjp(_vjp_fwd, _vjp_bwd)
 
 
-# ---------------------------------------------------------------------------
-# C14a: fused value+gradient kernel for the SMC HMC mutation
-# ---------------------------------------------------------------------------
-#
-# One kernel produces BOTH the log-likelihood and its gradients wrt
-# (log_w, mus, sigmas) — the quantity every leapfrog step needs — so one
-# launch replaces the fwd+bwd pair, and the grid is 1-D over large particle
-# blocks (PB_VG=128) with the WHOLE dataset resident in VMEM (lifted
-# features, (D+2, N) ~ tens of KB for the GMM config).  The round-1 kernels
-# ran a (P/8, N/512) grid = thousands of sequential tiny instances per
-# launch, which per-instance overhead made ~100x slower than the math
-# itself (VERDICT r1 item 3).
-#
-# Lifted-feature formulation: with A = [x^T; |x|^2; 1] of shape (D+2, N)
-# and per-component rows b_k = [mu_k/s^2, -1/(2s^2), logw_k
-# - |mu_k|^2/(2s^2) - d log s - (d/2)log 2pi], the per-component density
-# rows are exactly ll_k = b_k @ A — all K components ride the MXU in K
-# skinny matmuls, no (P,K,N) tensor ever hits HBM.
-
-_PB_VG = 128      # particles per block (1-D grid)
-_N_ALIGN = 512    # lane alignment for the resident dataset
-
-
-def _vg_kernel(a_ref, logw_ref, musf_ref, sig_ref,
-               ll_ref, dlogw_ref, dmusf_ref, dsig_ref, *, k, d, n):
-    a = a_ref[...]                                    # (D+2, NPAD)
-    xb = a[0:d, :]                                    # (D, NPAD)
-    j = jax.lax.broadcasted_iota(jnp.int32, (1, a.shape[1]), 1)
-    mask = j < n
-
-    lls, mus_k, sigs_k, lws_k, invs2_k = [], [], [], [], []
-    for kk in range(k):
-        mu_k = musf_ref[:, kk * d:(kk + 1) * d]       # (PB, D)
-        sig_k = sig_ref[:, kk:kk + 1]                 # (PB, 1)
-        lw_k = logw_ref[:, kk:kk + 1]
-        inv_s2 = 1.0 / (sig_k * sig_k)
-        mu2 = jnp.sum(mu_k * mu_k, axis=1, keepdims=True)
-        c_k = (lw_k - 0.5 * mu2 * inv_s2 - d * jnp.log(sig_k)
-               - 0.5 * d * _LOG_2PI)
-        b_k = jnp.concatenate(
-            [mu_k * inv_s2, -0.5 * inv_s2, c_k], axis=1
-        )                                             # (PB, D+2)
-        ll_k = _dot_3x(b_k, a, (((1,), (0,)), ((), ())))  # (PB, NPAD)
-        lls.append(ll_k)
-        mus_k.append(mu_k)
-        sigs_k.append(sig_k)
-        lws_k.append(lw_k)
-        invs2_k.append(inv_s2)
-
-    lse = _streaming_lse(lls)                         # (PB, NPAD)
-    ll_ref[...] = jnp.sum(jnp.where(mask, lse, 0.0), axis=1, keepdims=True)
-
-    dlogw_cols, dmus_cols, dsig_cols = [], [], []
-    cc = 0.5 * d * _LOG_2PI
-    for kk in range(k):
-        resp = jnp.where(mask, jnp.exp(lls[kk] - lse), 0.0)   # (PB, NPAD)
-        r_sum = jnp.sum(resp, axis=1, keepdims=True)
-        rll_sum = jnp.sum(resp * lls[kk], axis=1, keepdims=True)
-        rx = jax.lax.dot_general(
-            resp, xb, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=_GRAD_DOT_PRECISION,
-        )                                             # (PB, D)
-        sig_k, lw_k, inv_s2 = sigs_k[kk], lws_k[kk], invs2_k[kk]
-        # sum_n resp*q from sum_n resp*ll:  q = 2 s^2 (lw - d log s - cc - ll)
-        rq_sum = 2.0 * sig_k * sig_k * (
-            (lw_k - d * jnp.log(sig_k) - cc) * r_sum - rll_sum
-        )
-        dlogw_cols.append(r_sum)
-        dmus_cols.append((rx - mus_k[kk] * r_sum) * inv_s2)
-        dsig_cols.append(rq_sum * inv_s2 / sig_k - d * r_sum / sig_k)
-
-    dlogw_ref[...] = jnp.concatenate(dlogw_cols, axis=1)
-    dmusf_ref[...] = jnp.concatenate(dmus_cols, axis=1)
-    dsig_ref[...] = jnp.concatenate(dsig_cols, axis=1)
-
-
-def _lifted_features(x):
-    n, d = x.shape
-    npad = -(-n // _N_ALIGN) * _N_ALIGN
-    a = jnp.concatenate(
-        [x.T, jnp.sum(x * x, axis=1)[None, :], jnp.ones((1, n), x.dtype)],
-        axis=0,
-    )
-    return jnp.pad(a, ((0, 0), (0, npad - n))), n, d
-
-
-def _pallas_vg(x, log_w, mus, sigmas, interpret=False):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    p0, kk = log_w.shape
-    musf = mus.reshape(p0, -1)
-    pad = (-p0) % _PB_VG
-    if pad:
-        log_w = jnp.pad(log_w, ((0, pad), (0, 0)))
-        musf = jnp.pad(musf, ((0, pad), (0, 0)))
-        sigmas = jnp.pad(sigmas, ((0, pad), (0, 0)), constant_values=1.0)
-    p = p0 + pad
-    a, n, d = _lifted_features(x)
-
-    kernel = functools.partial(_vg_kernel, k=kk, d=d, n=n)
-    ll, dlogw, dmusf, dsig = pl.pallas_call(
-        kernel,
-        grid=(p // _PB_VG,),
-        in_specs=[
-            pl.BlockSpec((d + 2, a.shape[1]), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((_PB_VG, kk), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((_PB_VG, kk * d), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((_PB_VG, kk), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((_PB_VG, 1), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((_PB_VG, kk), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((_PB_VG, kk * d), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((_PB_VG, kk), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((p, 1), x.dtype),
-            jax.ShapeDtypeStruct((p, kk), x.dtype),
-            jax.ShapeDtypeStruct((p, kk * d), x.dtype),
-            jax.ShapeDtypeStruct((p, kk), x.dtype),
-        ),
-        interpret=interpret,
-    )(a, log_w, musf, sigmas)
-    return (ll[:p0, 0], dlogw[:p0], dmusf[:p0].reshape(p0, kk, d),
-            dsig[:p0])
-
-
-def gmm_loglik_grad(x, log_w, mus, sigmas):
+def gmm_loglik_grad(x, log_w, mus, sigmas, interpret=False):
     """Fused value + gradient: x (N,D), log_w (P,K), mus (P,K,D), sigmas
-    (P,K) -> (ll (P,), dlogw (P,K), dmus (P,K,D), dsig (P,K)).
-
-    One Pallas launch on TPU (SURVEY.md C14a — the leapfrog's grad-eval
-    fused in one kernel); jnp value_and_grad of the reference elsewhere
-    (the §4.7 parity oracle, tested in tests/test_kernels.py)."""
-    use, interp = _use_pallas()
-    if use:
-        return _pallas_vg(x, log_w, mus, sigmas, interpret=interp)
-
-    def f(lw, mu, sg):
-        return jnp.sum(gmm_loglik_reference(x, lw, mu, sg))
-
-    ll = gmm_loglik_reference(x, log_w, mus, sigmas)
-    dlogw, dmus, dsig = jax.grad(f, argnums=(0, 1, 2))(log_w, mus, sigmas)
-    return ll, dlogw, dmus, dsig
+    (P,K) -> (ll (P,), dlogw (P,K), dmus (P,K,D), dsig (P,K)).  One kernel
+    launch on a GPU; ``jax.grad`` of the reference on the CPU."""
+    if use_kernel(interpret):
+        return _kernel_call(x, log_w, mus, sigmas, with_grad=True,
+                            interpret=interpret)
+    return _reference_value_and_grad(x, log_w, mus, sigmas)

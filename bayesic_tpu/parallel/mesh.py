@@ -1,10 +1,10 @@
 """Mesh construction and sharding plans — the only layer that names mesh
 axes (SURVEY.md layer rule, §1b).
 
-Blueprint: SURVEY.md C11 — "the TPU-native equivalent of NCCL/MPI/Gloo":
-there is no hand-written communication backend at all; distribution is
-expressed as ``jax.sharding.Mesh`` + ``NamedSharding`` annotations and XLA
-compiles the collectives over ICI/DCN.  Axis conventions:
+Blueprint: SURVEY.md C11 — the communication backend: there is no
+hand-written one at all; distribution is expressed as ``jax.sharding.Mesh``
++ ``NamedSharding`` annotations and XLA compiles the collectives (NCCL on
+GPUs).  Axis conventions:
 
   data      mini-batch shards for DP-SVI           (C12)
   chain     MCMC chains                            (C13a)
@@ -12,8 +12,10 @@ compiles the collectives over ICI/DCN.  Axis conventions:
   model     sharded latent blocks / obs dimension  (C13c/C13d)
 
 Design rule (SURVEY.md §5): axes that only need scalar/small collectives
-(data/chain/particle) go on the outer (DCN-capable) mesh dimension; ``model``
-stays innermost so its heavier collectives ride ICI.
+(data/chain/particle) go on the outer mesh dimension, which may span
+hosts; ``model`` stays innermost so its heavier collectives stay within a
+host's all-to-all NVLink.  Within one host every card reaches every other
+at the same rate, so the mesh follows the algorithm alone.
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@ and data-dependent cross-shard particle routing inside a jit".
 Two interchangeable implementations (tested equal, SURVEY.md §4.5):
 
 * :func:`systematic_ancestors` + gather under plain ``jit`` with sharded
-  arrays — the idiomatic TPU path: XLA's SPMD partitioner turns the global
+  arrays — the idiomatic JAX path: XLA's SPMD partitioner turns the global
   cumsum/searchsorted/gather into the needed collectives automatically.
 * :func:`systematic_resample_shard_map` — the explicit choreography from
   SURVEY.md §3.3: global weight normalization (psum), distributed prefix sum
@@ -32,8 +32,13 @@ the 1/N stratified-position spacing and systematic counts lose their
 floor/ceil guarantee (tested in tests/test_sharding.py).
 
 Both paths use ONE shared uniform u0 (from a key that must be identical on
-every shard) so the sharded result is bit-identical to the single-device
-result — the SURVEY.md §4.5 golden rule.
+every shard) so the sharded result matches the single-device result — the
+SURVEY.md §4.5 golden rule.  On the CPU it is bit-identical.  On a GPU the
+two prefix sums add in different orders, so a position within float32
+rounding of a boundary may pick the neighbouring ancestor: each offspring
+count still agrees within one.  Beyond 2^20 particles float32 no longer
+resolves the 1/N spacing near a cumulative weight of 1, and the floor/ceil
+guarantee is lost (an open defect, listed in ROADMAP.md).
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ Blueprint: SURVEY.md C21 — "posterior mean/std, MC standard error, ESS
 (autocorrelation-based), split-R̂, divergence counts" (metric "effective
 samples/s"; acceptance "within 2 MC-standard-errors", BASELINE.json).
 
-Implementation notes (TPU-friendly): autocovariances via FFT (one batched
+Implementation notes (accelerator-friendly): autocovariances via FFT (one batched
 rfft per parameter block), Geyer's initial-monotone-positive-sequence
 truncation done with masked cumulative ops (no data-dependent control flow),
 so the whole diagnostic stack is jit-able and runs on device over sharded

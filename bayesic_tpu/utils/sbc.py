@@ -7,7 +7,7 @@ correct sampler yields uniform ranks for EVERY marginal; systematic
 deviations localize bias (U-shape = overdispersed posterior, hump =
 underdispersed, skew = shifted).
 
-TPU-native shape: the replications are embarrassingly parallel — the
+Compiled shape: the replications are embarrassingly parallel — the
 caller's ``run_fn`` is invoked per replication with a folded key (vmap is
 usually impossible because samplers carry their own jit'd programs; the
 loop re-uses ONE cached compiled program across replications, so the cost

@@ -250,7 +250,7 @@ def test_nuts_stationary_distribution_ks():
 
 def test_run_segmented_matches_monolithic():
     """run_segmented (chunked XLA programs with host fences, the
-    long-adaptation path for the remote TPU runtime) must reproduce run()
+    long-adaptation path) must reproduce run()
     exactly — both index schedule and PRNG stream by absolute step."""
     yv = jnp.asarray(np.linspace(-0.5, 1.5, 16).astype(np.float32))
 
